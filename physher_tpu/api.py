@@ -7,7 +7,7 @@ buffers). The functional JAX models stay pure underneath; each Interface
 object carries the current parameter values and a lazily-jitted
 value-and-grad of the assembled model, so external frameworks (torchtree
 etc.) get the same imperative contract the reference exposes, backed by
-compiled TPU code instead of hand-written C gradients.
+compiled XLA code instead of hand-written C gradients.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Rebuild of the reference's main program (reference: src/physher.c:62-326):
 parse the config, build the model graph, execute the ``physher`` action list.
 Flags mirror the reference: ``--seed``, ``--dry`` (print resolved config),
-``-c`` checkpoint restore. Extra TPU-era flags: ``--platform``, ``--f64``.
+``-c`` checkpoint restore. Extra flags: ``--platform``, ``--f64``,
+``--devices``, ``--mesh``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="physher-tpu",
-        description="TPU-native phylogenetic inference (physher-compatible "
-                    "JSON configs)")
+        description="phylogenetic inference on JAX devices "
+                    "(physher-compatible JSON configs)")
     ap.add_argument("config", help="JSON config file")
     ap.add_argument("--seed", type=int, default=None,
                     help="random seed (overrides config init.seed)")
@@ -28,9 +29,10 @@ def main(argv=None):
     ap.add_argument("-c", "--checkpoint", default=None,
                     help="restore parameter values from a checkpoint CSV")
     ap.add_argument("--platform", default=None,
-                    help="jax platform (cpu/tpu); default: jax's choice")
+                    help="jax platform (cpu/gpu); default: jax's choice")
     ap.add_argument("--f64", action="store_true", default=None,
-                    help="enable float64 (default on CPU)")
+                    help="enable float64 (default on CPU; the GPU runs it "
+                         "natively)")
     ap.add_argument("--devices", type=int, default=None,
                     help="shard site patterns over N devices "
                          "(overrides config init.devices)")
@@ -39,10 +41,9 @@ def main(argv=None):
                          "(overrides config init.mesh)")
     args = ap.parse_args(argv)
 
-    # NOTE: TPU plugins may prepend themselves to jax_platforms at import
-    # time, so the JAX_PLATFORMS env var alone cannot reliably select the
-    # CPU — honor it (and --platform / PHYSHER_TPU_PLATFORM) via
-    # config.update after import.
+    # jax may already be imported (tests, pytest plugins) with its platform
+    # fixed, so the JAX_PLATFORMS env var alone cannot reliably select one —
+    # honor it (and --platform / PHYSHER_TPU_PLATFORM) via config.update.
     platform = (args.platform or os.environ.get("PHYSHER_TPU_PLATFORM")
                 or os.environ.get("JAX_PLATFORMS"))
     import jax

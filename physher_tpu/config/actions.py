@@ -890,15 +890,9 @@ class Runner:
         def f(z):
             return log_prob(space.constrain(space.unflatten_unconstrained(z)))
 
-        # reverse-over-reverse: jax.hessian is jacfwd(jacrev) and forward
-        # mode is unsupported by the Pallas engines' custom_vjp; jacrev(grad)
-        # still needs to differentiate through the backward, so force the
-        # XLA engine (its graph is plain differentiable JAX). Reference FD
-        # Hessian: src/phyc/hessian.c.
-        from ..models.treelikelihood import engine_override
-
-        with engine_override("xla"):
-            H = np.asarray(jax.jacrev(jax.grad(f))(u))
+        # reverse-over-reverse Hessian (reference FD Hessian:
+        # src/phyc/hessian.c)
+        H = np.asarray(jax.jacrev(jax.grad(f))(u))
         self.results[node.get("id", "hessian")] = H
         print("Hessian (unconstrained space):", file=self.out)
         print(np.array2string(H, precision=6), file=self.out)

@@ -578,18 +578,12 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
         clock = StrictClock(topo.N, "bm.", rate_init=1e-3)
     dist0 = np.nan_to_num(np.asarray(distances)[: topo.N - 1], nan=0.1)
     tid = node.get("id", "treelikelihood")
-    # pad the pattern axis to the Pallas TILE on TPU so config-built models
-    # (the reference's own configs: fluA, tests/data) hit the fast engines;
-    # padded patterns carry zero weight, so this is exact
-    if "pattern_pad_multiple" in node:
-        pad = int(node["pattern_pad_multiple"])
-    else:
-        import jax as _jax
-
-        pad = 256 if _jax.default_backend() == "tpu" else 1
+    # mesh runs pad the pattern axis to a multiple of the pattern-mesh size
+    # (padded patterns carry zero weight, so this is exact)
+    pad = int(node.get("pattern_pad_multiple", 1))
     n_pat = getattr(ctx, "pattern_devices", 1)
-    if n_pat > 1:  # mesh run: per-shard slices must stay tile-aligned
-        pad = pad * n_pat // math.gcd(pad, n_pat)
+    if n_pat > 1:
+        pad = math.lcm(pad, n_pat)
     tlk = TreeLikelihood(
         sp, topo, subst, site_model, clock=clock, time_data=td,
         distances_init=dist0,
@@ -602,7 +596,6 @@ def build_treelikelihood(node, ctx: Context) -> TreeLikelihood:
         tipstates=bool(node.get("tipstates", True)),
         prefix=handle.prefix,
         pattern_pad_multiple=pad,
-        engine=str(node.get("engine", "auto")),
         height_transform=getattr(handle, "transform", "ratio"),
     )
     ctx.param_names.setdefault(handle.key("distances"),

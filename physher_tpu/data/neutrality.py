@@ -3,7 +3,7 @@
 Rebuild of the reference's neutrality tests (reference:
 src/phyc/neutralitytest.h:22-31, neutralitytest.c:27-216). Vectorized over
 sites with numpy — these are O(sequences x sites) one-shot statistics, not
-TPU hot paths. The reference's singleton counter transposes its sequence/site
+device hot paths. The reference's singleton counter transposes its sequence/site
 indices (neutralitytest.c:146-152); here the intended definition is used: a
 site is a singleton site when its second-most-frequent nucleotide occurs in
 exactly one sequence.

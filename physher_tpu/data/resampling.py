@@ -2,7 +2,7 @@
 
 Rebuild of the reference's resampling toolkit (reference:
 src/phyc/phyresampling.h:24-43 — Sequences_bootstrap/jackknife[_n],
-SitePattern_bootstrap/jackknife[_n]/reweight). TPU-first design: resampling a
+SitePattern_bootstrap/jackknife[_n]/reweight). Design: resampling a
 compressed SitePattern never touches the sequences — bootstrap draws a
 multinomial over *sites* and folds it into the pattern ``weights`` vector, so
 a resampled likelihood differs from the original only in one small weight
@@ -46,7 +46,7 @@ def jackknife_alignment_n(seqs: "OrderedDict[str, str]", n: int, rng=None):
                        for nm, s in seqs.items())
 
 
-# -- site-pattern-level (weights-only; the TPU-native path) ------------------
+# -- site-pattern-level (weights-only; the jit/vmap-friendly path) ----------
 
 def bootstrap_weights(sp: SitePattern, rng=None, n_replicates: int = 1):
     """Multinomial bootstrap over sites expressed as pattern weights.

@@ -2,8 +2,8 @@
 
 Rebuild of the reference's SitePattern (reference: src/phyc/sitepattern.c:87
 ``new_SitePattern``: dedupe identical alignment columns into weighted unique
-patterns). On TPU the pattern axis is the data-parallel axis — it is padded to
-a lane multiple and sharded across devices; padded columns carry weight 0 and
+patterns). The pattern axis is the data-parallel axis — it is padded to a
+multiple of the device count and sharded; padded columns carry weight 0 and
 all-ones tip partials so they contribute exactly nothing to the likelihood.
 """
 

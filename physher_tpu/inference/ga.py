@@ -7,7 +7,7 @@ temperature-scheduled annealer over the same State encoding). Used by the
 reference for local-clock placement, discrete-clock assignment and Q-matrix
 rate-class search ("q-search", physhercmd.c:834).
 
-TPU-first design: the population is one [P, L] integer array and fitness is
+Design: the population is one [P, L] integer array and fitness is
 evaluated for the whole population at once — callers hand in a *batched*
 fitness function (typically a vmapped/jitted likelihood over a masked
 encoding), which replaces the reference's thread pool with the batch axis.

@@ -7,7 +7,7 @@ src/phyc/nest.c nested sampling, src/phyc/mmcmc.c tempered-chain driver).
 
 The tempered ladder runs as ONE batched MCMC (temperatures on the vmapped
 chain axis) instead of the reference's sequential per-temperature loop
-(mmcmc.c:48-88) — the qualitative TPU upgrade flagged in SURVEY.md §2.9.
+(mmcmc.c:48-88) — the batched-ladder upgrade flagged in SURVEY.md §2.9.
 """
 
 from __future__ import annotations
@@ -220,12 +220,8 @@ def laplace_marginal(log_prob, space: ParamSpace, map_params,
         up = space.unflatten_unconstrained(z)
         return log_prob(space.constrain(up)) + space.log_jacobian(up)
 
-    # reverse-over-reverse Hessian; the Pallas engines' backward kernels are
-    # not differentiable, so force the XLA engine for the second derivative
-    from ..models.treelikelihood import engine_override
-
-    with engine_override("xla"):
-        H = jax.jacrev(jax.grad(f))(u)
+    # reverse-over-reverse Hessian
+    H = jax.jacrev(jax.grad(f))(u)
     d = u.shape[0]
     sign, logdet = jnp.linalg.slogdet(-H)
     return float(f(u) + 0.5 * d * math.log(2 * math.pi) - 0.5 * logdet)
@@ -271,17 +267,10 @@ def laplace_marginal_fitted(log_prob, space: ParamSpace, map_params,
             i += n
         return log_prob(p)
 
-    from ..models.treelikelihood import engine_override
-
     m = to_vec(map_params)
     logp0 = f(m)
     d1 = jax.grad(f)(m)
-    # only the second derivative needs the XLA engine (the Pallas backward
-    # kernels are not differentiable); keeping logp0/d1 outside the override
-    # avoids pinning the slower engine into the jit cache of a shared
-    # log_prob callable for same-shape calls made after this returns
-    with engine_override("xla"):
-        d2 = jnp.diagonal(jax.jacrev(jax.grad(f))(m))
+    d2 = jnp.diagonal(jax.jacrev(jax.grad(f))(m))
 
     if family == "gamma":
         # rate = -f''(m)*m, shape = rate*m + 1 (laplace.c:189-192)

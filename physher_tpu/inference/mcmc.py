@@ -62,7 +62,7 @@ class HMC:
     """Hamiltonian Monte Carlo over a ParamSpace (reference: src/phyc/
     ophmc.c — leapfrog with the model's dlogP; here the gradient is
     jax.grad of the unconstrained log-posterior and chains vectorize
-    with vmap, the TPU-native replacement for the reference's
+    with vmap, the batched replacement for the reference's
     single-operator HMC).
     """
 
@@ -341,24 +341,8 @@ class MCMC:
 
         run_chunk = self._compiled_chunk()
 
-        # chain batches route any TreeLikelihood in the target to the
-        # level-array XLA engine: the trace-time batch probe cannot see
-        # through a scan body (see treelikelihood._vmap_batch_size), and
-        # the driver knows n_chains. Measured inside the MH scan on v5e
-        # (fluA, proposals/s, fused vs xla): 2 chains 4.6k/4.8k, 8
-        # chains 16k/19k, 32 chains 39k/70k, 64 chains 50k/120k, 4096
-        # chains 46k/198k — XLA wins from 2 chains up and ties at 1.
-        # Deterministic in n_chains, so the jit cache (keyed on shapes)
-        # stays consistent.
-        from ..models.treelikelihood import engine_override
-        import contextlib
-
-        eng_ctx = (engine_override("xla") if n_chains >= 2
-                   else contextlib.nullcontext())
-
         # initial state
-        with eng_ctx:
-            init_lp = self._init_eval(us, temps)
+        init_lp = self._init_eval(us, temps)
         states = (us, init_lp[0], init_lp[1],
                   jnp.zeros((n_chains, len(self.blocks)), dtype=u0.dtype),
                   jnp.zeros((n_chains, len(self.blocks)), dtype=u0.dtype))
@@ -383,8 +367,7 @@ class MCMC:
                 key, sub = jax.random.split(key)
                 keys = jax.random.split(sub, n_chains * every).reshape(
                     n_chains, every, 2)
-                with eng_ctx:
-                    states = run_chunk(states, keys, sigmas_np, temps)
+                states = run_chunk(states, keys, sigmas_np, temps)
                 if ci >= burn_chunks:
                     samples[si] = np.asarray(states[0])
                     lps[si] = np.asarray(states[1])

@@ -3,7 +3,7 @@
 Functional replacement for the reference's optimizer stack (reference:
 src/phyc/optimizer.c: meta/Brent/serial-Brent/BFGS/CG/Powell/SG/Adam). The
 reference's serial-Brent-per-branch loop exists because it lacks cheap full
-gradients; with autodiff the idiomatic TPU approach is full-vector
+gradients; with autodiff the idiomatic device approach is full-vector
 first-order (Adam) and quasi-Newton (L-BFGS) optimization of ALL parameters
 in unconstrained space, with every iteration one fused jitted step.
 
@@ -273,7 +273,7 @@ def _multistart_warmup(log_prob, space: ParamSpace, params: dict, *,
     """Batched Adam from jittered starts; returns the best start's params.
 
     The reference's meta-optimizer escapes coordinate-local basins with
-    serial bounded Brent per scalar (optimizer.c:100-152); the TPU-native
+    serial bounded Brent per scalar (optimizer.c:100-152); the batched
     equivalent is a *vmapped* short optimization over perturbed starts —
     one compile, the batch axis rides the accelerator. Scalar parameters
     (gamma shape, kappa, pinv...) get unconstrained-space jitter; vectors

@@ -3,7 +3,7 @@ substitution/site parameters.
 
 Rebuild of the reference's tree operators inside MCMC (reference:
 src/phyc/operator.c:419-626 `_operator_nni` / scaler / slider entries,
-dispatched from the mcmc.c:112-142 store/propose/accept loop). TPU-first
+dispatched from the mcmc.c:112-142 store/propose/accept loop). Device-first
 redesign:
 
 - the likelihood evaluator is compiled ONCE with the topology as runtime
@@ -367,7 +367,7 @@ class BatchedTreeMCMC:
 
         ``incremental=True`` (parameter-free models only) carries the
         per-chain partials as sampler state and recomputes ONLY the
-        root path after each move — the TPU-native analog of the
+        root path after each move — the device analog of the
         reference's dirty-flag incremental recompute + O(1)
         store/restore (src/phyc/treelikelihood.c:126-161); rejection is
         the ``jnp.where`` keeping the old state. O(depth) node updates

@@ -132,7 +132,7 @@ class GammaMeanFieldVB(MeanFieldNormalVB):
     """Fully-factorized gamma family (reference: src/phyc/gamvi.c — gamma
     meanfield via the Generalized Reparameterization Gradient).
 
-    TPU-native design: the block lives on the *unconstrained* space as a
+    Design: the block lives on the *unconstrained* space as a
     log-gamma — z = log g with g ~ Gamma(alpha, rate beta) has full support
     on R, and for a positive parameter (z = log x) the induced distribution
     on x is exactly the reference's Gamma(alpha, beta). Sampling uses
@@ -308,7 +308,7 @@ def fit(vb, key, *, steps: int = 5000, learning_rate: float = 0.02,
 
     ``chunk > 1`` runs that many Adam steps per device dispatch inside
     ``lax.scan`` — on small models (fluA: 238 patterns) per-step dispatch
-    latency dominates an accelerator run, so chunking is what makes TPU VI
+    latency dominates an accelerator run, so chunking is what makes device VI
     competitive with the reference's in-cache CPU loop. Early stopping then
     happens at chunk granularity (``elbo_every`` is rounded up).
 

@@ -1,4 +1,4 @@
-"""Parameter pytrees and constraint transforms — the model-graph core, TPU-style.
+"""Parameter pytrees and constraint transforms — the model-graph core, JAX-style.
 
 The reference centers on a mutable ``Parameter``/``Model`` listener graph with
 dirty-flag propagation (reference: src/phyc/parameters.c, parameters.h:95-363).

@@ -147,8 +147,9 @@ class QuantileSiteModel(SiteModel):
 
             if static_p is not None and not jax.config.jax_enable_x64:
                 # fast path: host-tabulated quantiles at static probabilities
-                # (XLA igamma is a ~ms-scale sequential loop on TPU); the f64
-                # golden path keeps the Newton inverse
+                # (XLA igamma is a long sequential loop; see
+                # utils/special.py for the GPU timings); the f64 golden path
+                # keeps the Newton inverse
                 from ..utils.special import qgamma_fixed_p
 
                 return qgamma_fixed_p(static_p, alpha)

@@ -3,12 +3,12 @@
 Rebuild of the reference's substitution-model family (reference:
 src/phyc/substmodel.c, jc69.c, hky.c, gtr.c, K80.c, f81.c, nucsubst.c,
 unrest.c, nonstat.c, wag.c, lg.c, dayhoff.c, mg94.c, gy94.c, gensubst.c) in
-TPU-idiomatic form:
+JAX-idiomatic form:
 
 - JC69 / K80 / F81 / HKY use closed-form P(t) (no eigendecomposition, exact
   autodiff; reference hky.c:230-560 computes the same analytic forms),
 - general reversible models (GTR, empirical amino-acid, MG94/GY94, generic)
-  symmetrize Q with sqrt(pi) and use a self-adjoint ``eigh`` — the TPU-native
+  symmetrize Q with sqrt(pi) and use a self-adjoint ``eigh`` — the device-friendly
   replacement for the reference's Numerical-Recipes nonsymmetric solver
   (reference: src/phyc/eigen.c:115, hessenberg.c) which only exists because
   the reference never exploits reversibility,
@@ -159,9 +159,9 @@ def pt_from_eig(lam, V, Vinv, t) -> jnp.ndarray:
     """P(t) = V exp(lam t) V^-1, batched over leading dims of t
     (reference: src/phyc/substmodel.c:518-556).
 
-    precision=highest: the default TPU matmul precision truncates operands
-    to bf16, and P(t) entries near t=0 are I + O(t) — the reconstruction
-    cancellation amplifies bf16 noise to ~1e-3 ABSOLUTE on off-diagonals
+    precision=highest: a lower matmul precision truncates operands (bf16 or
+    TF32), and P(t) entries near t=0 are I + O(t) — the reconstruction
+    cancellation amplifies that noise to ~1e-3 ABSOLUTE on off-diagonals
     that are themselves ~1e-3 (measured). These are S x S matrices; the
     extra passes are free next to the pruning dots they feed.
     """

@@ -1,7 +1,7 @@
 /* Native data-loader kernels: FASTA scan, sequence encoding, site-pattern
  * compression.
  *
- * TPU-native rebuild of the reference's C data layer (reference:
+ * Native rebuild of the reference's C data layer (reference:
  * src/phyc/sequenceio.c FASTA/NEXUS/Phylip readers, src/phyc/sitepattern.c:87
  * new_SitePattern alignment->pattern compression, src/phyc/sequence.c).
  * The host-side data pipeline stays native so alignment ingestion never

@@ -5,7 +5,7 @@ fixed-tree inference but requiring a recompile per topology. Tree search
 (NNI/SPR) scores MANY alternative topologies; here the children arrays are
 jnp inputs and the postorder is a ``lax.scan`` over internal ranks, so ONE
 compiled evaluator scores a whole batch of candidate topologies via ``vmap``
-(the TPU answer to the reference's OpenMP-parallel move evaluation over
+(the batched answer to the reference's OpenMP-parallel move evaluation over
 cloned likelihood objects, reference: src/phyc/nniopt.c:160-380,
 spropt.c:1128-1380; the "fixed maximal schedule" strategy flagged in
 SURVEY.md §7 hard parts).
@@ -196,7 +196,7 @@ def root_loglik_from_partials(buf, scal, freqs, props, weights, *,
 def update_path_partials(buf, scal, pmats, children, start, T: int, *,
                          rescale: bool = False, parent=None):
     """Incremental recompute: refresh partials from ``start`` (a node id)
-    up the root path only — the TPU-native analog of the reference's
+    up the root path only — the device analog of the reference's
     dirty-flag incremental recomputation + O(1) store/restore buffer
     flips (reference: src/phyc/treelikelihood.c:126-161): the old state
     stays untouched in the caller (``jnp.where`` on accept IS the

@@ -5,13 +5,12 @@ kernels (reference: src/phyc/treelikelihood4.c, treelikelihood20.c,
 treelikelihoodX.c, treelikelihoodCodon.c and the orchestrator
 src/phyc/treelikelihood.c:1454-1735) with one shape-polymorphic engine:
 
-- partials are a single buffer ``[N, C, S, P]`` (node, rate category, state,
-  pattern) with the pattern axis padded to a lane multiple and shardable
-  data-parallel across devices,
+- partials are arrays ``[n, C, S, P]`` (node, rate category, state,
+  pattern) with the pattern axis shardable data-parallel across devices,
 - the postorder is executed as ``len(levels)`` batched steps; every node in a
-  level computes ``prod_children P_child @ partial_child`` as one einsum that
-  XLA maps onto the MXU (contraction over states, batch over node x category,
-  patterns as the lane dimension),
+  level computes ``prod_children P_child @ partial_child`` as one batched
+  einsum that XLA compiles for the device (contraction over states, batch
+  over node x category, patterns as the minor dimension),
 - numerical rescaling is proactive per level (instead of the reference's
   reactive switch at treelikelihood.c:1497-1520): per-node per-pattern max
   factored out into a log accumulator, exact in the final log-likelihood.
@@ -27,6 +26,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..trees.topology import Topology
+
+# Matmul precision of every pruning contraction. "highest" keeps f32
+# partials at float32 accuracy; below it XLA may use reduced-precision
+# operands (TF32 on the GPU), which loses ~3 decimal digits per product.
+PRECISION = "highest"
 
 
 def pruning_partials(tip_partials: jnp.ndarray, pmats: jnp.ndarray,
@@ -61,7 +65,7 @@ def pruning_partials(tip_partials: jnp.ndarray, pmats: jnp.ndarray,
             pm = pmats[ch_safe]  # [n, C, S, S]
             cp = buf[ch_safe]    # [n, C, S, P]
             contrib = jnp.einsum("ncij,ncjp->ncip", pm, cp,
-                                 precision="high")
+                                 precision=PRECISION)
             if not mask.all():
                 m = jnp.asarray(mask, dtype=dtype)[:, None, None, None]
                 contrib = contrib * m + (1.0 - m)
@@ -88,8 +92,8 @@ def root_log_likelihood(root_partials: jnp.ndarray, freqs: jnp.ndarray,
     sharded pattern axis; reference: src/phyc/treelikelihood.c:1483-1486).
     """
     site_l = jnp.einsum("s,csp->cp", freqs, root_partials,
-                        precision="high")
-    site_lik = jnp.einsum("c,cp->p", props, site_l, precision="high")
+                        precision=PRECISION)
+    site_lik = jnp.einsum("c,cp->p", props, site_l, precision=PRECISION)
     site_log = jnp.log(site_lik)
     if log_scalers is not None:
         site_log = site_log + log_scalers
@@ -105,8 +109,7 @@ def _level_schedule(topo: Topology):
     (positions-in-level, positions-in-source). This lets the postorder run
     on small per-level arrays instead of one [N, C, S, P] buffer whose
     functional updates copy the whole buffer per level once a chain batch
-    dimension is vmapped in (measured 83 ms of a 91 ms fluA logP eval at
-    4096 chains)."""
+    dimension is vmapped in)."""
     if getattr(topo, "_level_sched", None) is not None:
         return topo._level_sched
     lev_of = {}
@@ -157,8 +160,8 @@ def pruning_root_levels(tip_partials, pmats, topo: Topology, *,
     Same math as :func:`pruning_partials`; partials live in per-level
     arrays [n_level, C, S, P] gathered slot-wise from earlier levels, so
     nothing ever rewrites an O(N) buffer — the vmap/chain-batched form
-    streams each partial through HBM ~twice instead of copying the full
-    buffer per level."""
+    streams each partial through device memory ~twice instead of copying
+    the full buffer per level."""
     T, S, P = tip_partials.shape
     C = pmats.shape[1]
     dtype = tip_partials.dtype
@@ -195,7 +198,7 @@ def pruning_root_levels(tip_partials, pmats, topo: Topology, *,
             pm_idx = np.where(has, np.maximum(ch_col, 0), 0)
             pm = pmats[pm_idx]
             contrib = jnp.einsum("ncij,ncjp->ncip", pm, cp,
-                                 precision="high")
+                                 precision=PRECISION)
             if not has.all():
                 m = jnp.asarray(has, dtype)[:, None, None, None]
                 contrib = contrib * m + (1.0 - m)
@@ -219,6 +222,6 @@ def tree_log_likelihood(tip_partials, pmats, topo: Topology, freqs, props,
     return root_log_likelihood(root, freqs, props, weights, scal)
 
 
-def pad_patterns(n: int, multiple: int = 128) -> int:
-    """Pattern-axis padding target (lane alignment / shard divisibility)."""
+def pad_patterns(n: int, multiple: int = 1) -> int:
+    """Pattern-axis padding target (shard divisibility)."""
     return int(-(-n // multiple) * multiple)

@@ -19,6 +19,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from ..trees.topology import Topology
+from .pruning import PRECISION
 
 
 def upper_partials(lower: jnp.ndarray, pmats: jnp.ndarray, topo: Topology,
@@ -46,7 +47,7 @@ def upper_partials(lower: jnp.ndarray, pmats: jnp.ndarray, topo: Topology,
             ch_safe = np.where(mask, ch, 0)
             pm = pmats[ch_safe]
             lo = lower[ch_safe]
-            c = jnp.einsum("ncij,ncjp->ncip", pm, lo, precision="high")
+            c = jnp.einsum("ncij,ncjp->ncip", pm, lo, precision=PRECISION)
             if not mask.all():
                 m = jnp.asarray(mask, dtype=dtype)[:, None, None, None]
                 c = c * m + (1.0 - m)
@@ -73,7 +74,7 @@ def node_marginals(lower, upper, props, weights=None):
     """Posterior state probabilities per node/site: [N, S, P]
     (reference: src/phyc/asr.c marginal ASR from upper*lower)."""
     joint = jnp.einsum("c,ncsp->nsp", props, lower * upper,
-                       precision="high")
+                       precision=PRECISION)
     total = joint.sum(1, keepdims=True)
     return joint / total
 
@@ -81,6 +82,6 @@ def node_marginals(lower, upper, props, weights=None):
 def site_category_posteriors(lower_root, upper_root_freqs, props):
     """P(category | site): [C, P] (reference: src/phyc/ppsites.c:16-30)."""
     site_l = jnp.einsum("s,csp->cp", upper_root_freqs, lower_root,
-                        precision="high")
+                        precision=PRECISION)
     joint = props[:, None] * site_l
     return joint / joint.sum(0, keepdims=True)

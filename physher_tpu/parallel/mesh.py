@@ -2,12 +2,13 @@
 
 The reference's only scaling axis is SIMD/OpenMP across site patterns inside
 one process (reference: src/phyc/treelikelihood4.c SSE kernels,
-treelikelihood.c:1426-1452 OpenMP). The TPU-native equivalent shards the
+treelikelihood.c:1426-1452 OpenMP). The device equivalent shards the
 pattern axis of the tip partials and pattern weights over a
 ``jax.sharding.Mesh`` — exact because site likelihoods are independent given
 the model; the weighted log-lik sum (reference: treelikelihood.c:1483-1486)
-and every per-pattern gradient contribution become XLA all-reduces over ICI,
-inserted automatically by GSPMD from the sharding annotations.
+and every per-pattern gradient contribution become XLA all-reduces between
+devices (NVLink on a multi-GPU host), inserted automatically by GSPMD from
+the sharding annotations.
 
 The tree, model parameters, and P matrices replicate; only ``[..., P]``
 arrays shard. MCMC chains / temperature ladders use a second mesh axis
@@ -17,7 +18,6 @@ arrays shard. MCMC chains / temperature ladders use a second mesh axis
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -67,9 +67,7 @@ def shard_tree_likelihood(tlk, mesh: Mesh, axis_name: str = "patterns"):
 
     After this, any jitted function of the likelihood runs SPMD: XLA
     partitions the pruning einsums on the pattern axis and inserts the
-    all-reduce at the weighted root sum. The Pallas engines (opaque to
-    GSPMD) are wrapped in ``shard_map`` over the pattern axis by the
-    TreeLikelihood once ``tlk.mesh`` is set here.
+    all-reduce at the weighted root sum.
     """
     n_dev = int(mesh.shape[axis_name])
     P_total = tlk.tip_partials.shape[-1]
@@ -79,136 +77,8 @@ def shard_tree_likelihood(tlk, mesh: Mesh, axis_name: str = "patterns"):
             f"by mesh axis {n_dev}; rebuild the likelihood "
             f"with pattern_pad_multiple={n_dev}"
         )
-    # an explicitly requested Pallas engine sees the PER-SHARD pattern count
-    # inside shard_map; n_tiles = P_shard // TILE would silently truncate the
-    # trailing patterns of every shard if it doesn't divide (engine="auto"
-    # handles this by falling back to the XLA engine via _shard_P())
-    if tlk.engine in ("pallas-fused", "pallas-staged", "pallas-loop"):
-        if tlk.engine == "pallas-fused":
-            from ..ops.pallas_fused import TILE_CSPLIT as tile
-        elif tlk.engine == "pallas-staged":
-            from ..ops.pallas_staged import TILE as tile
-        else:
-            from ..ops.pallas_pruning_loop import TILE as tile
-        if (P_total // n_dev) % tile:
-            raise ValueError(
-                f"per-shard pattern count {P_total // n_dev} not a multiple "
-                f"of the {tlk.engine} engine's TILE={tile}; rebuild with "
-                f"pattern_pad_multiple={tile * n_dev}"
-            )
     tlk.tip_partials, tlk.weights = shard_patterns(
         mesh, tlk.tip_partials, tlk.weights, axis_name=axis_name
     )
     tlk.mesh = mesh
-    tlk.pattern_axis = axis_name
     return tlk
-
-
-def _shard_map(fn, mesh, in_specs, out_specs):
-    """jax.shard_map across jax versions (experimental fallback)."""
-    # check_vma=False: pallas_call does not declare varying-mesh-axes
-    # metadata, so the collectives check cannot see through it
-    try:
-        return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except (AttributeError, TypeError):
-        from jax.experimental.shard_map import shard_map
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
-
-
-def shard_map_fused_engine(mesh: Mesh, axis_name: str = "patterns", *,
-                           interpret: bool = False):
-    """Pattern-sharded wrapper for the fused staged Pallas kernel (same
-    psum reduction point as shard_map_loop_engine)."""
-    from ..ops.pallas_fused import fused_site_log
-
-    def run(tips, pmats, topo, freqs, props, weights, *, rescale=True):
-        def shard_fn(tips_s, pmats_r, freqs_r, props_r, weights_s):
-            site = fused_site_log(tips_s, pmats_r, topo, freqs_r, props_r,
-                                  interpret=interpret)
-            logL = jax.lax.psum(jnp.sum(weights_s * site), axis_name)
-            return logL, site
-
-        fn = _shard_map(
-            shard_fn, mesh,
-            in_specs=(P(None, None, axis_name), P(), P(), P(), P(axis_name)),
-            out_specs=(P(), P(axis_name)))
-        return fn(tips, pmats, freqs, props, weights)
-
-    return run
-
-
-def shard_map_staged_engine(mesh: Mesh, axis_name: str = "patterns", *,
-                            interpret: bool = False):
-    """Pattern-sharded wrapper for the staged block-diagonal Pallas kernel
-    (same psum reduction point as shard_map_loop_engine)."""
-    from ..ops.pallas_staged import staged_site_log
-
-    def run(tips, pmats, topo, freqs, props, weights, *, rescale=True):
-        def shard_fn(tips_s, pmats_r, freqs_r, props_r, weights_s):
-            site = staged_site_log(tips_s, pmats_r, topo, freqs_r, props_r,
-                                   interpret=interpret)
-            logL = jax.lax.psum(jnp.sum(weights_s * site), axis_name)
-            return logL, site
-
-        fn = _shard_map(
-            shard_fn, mesh,
-            in_specs=(P(None, None, axis_name), P(), P(), P(), P(axis_name)),
-            out_specs=(P(), P(axis_name)))
-        return fn(tips, pmats, freqs, props, weights)
-
-    return run
-
-
-def shard_map_wide_engine(mesh: Mesh, axis_name: str = "patterns", *,
-                          interpret: bool = False):
-    """Pattern-sharded wrapper for the wide-state HBM-staged Pallas kernel
-    (ops/pallas_wide.py; same psum reduction point)."""
-    from ..ops.pallas_wide import wide_site_log
-
-    def run(tips, pmats, topo, freqs, props, weights, *, rescale=True):
-        def shard_fn(tips_s, pmats_r, freqs_r, props_r, weights_s):
-            site = wide_site_log(tips_s, pmats_r, topo, freqs_r, props_r,
-                                 interpret=interpret)
-            logL = jax.lax.psum(jnp.sum(weights_s * site), axis_name)
-            return logL, site
-
-        fn = _shard_map(
-            shard_fn, mesh,
-            in_specs=(P(None, None, axis_name), P(), P(), P(), P(axis_name)),
-            out_specs=(P(), P(axis_name)))
-        return fn(tips, pmats, freqs, props, weights)
-
-    return run
-
-
-def shard_map_loop_engine(mesh: Mesh, axis_name: str = "patterns", *,
-                          block: int = 4, interpret: bool = False):
-    """Pattern-sharded wrapper for the loop-based Pallas pruning kernel.
-
-    Pallas calls are opaque to GSPMD, so the automatic propagation that
-    partitions the XLA engine does not apply; this maps the kernel over
-    per-device pattern shards with ``shard_map`` and reduces the weighted
-    root sum with ``psum`` — the exact reduction point of the reference
-    (src/phyc/treelikelihood.c:1483-1486). Differentiable: the kernel's
-    analytic custom VJP composes with shard_map's psum transpose (P-matrix
-    cotangents are psum'ed across shards automatically).
-    """
-    from ..ops.pallas_pruning_loop import loop_site_log
-
-    def run(tips, pmats, topo, freqs, props, weights, *, rescale=True):
-        def shard_fn(tips_s, pmats_r, freqs_r, props_r, weights_s):
-            tips_s = jax.lax.stop_gradient(tips_s)
-            site = loop_site_log(topo, rescale, block, interpret,
-                                 tips_s, pmats_r, freqs_r, props_r)
-            logL = jax.lax.psum(jnp.sum(weights_s * site), axis_name)
-            return logL, site
-
-        fn = _shard_map(
-            shard_fn, mesh,
-            in_specs=(P(None, None, axis_name), P(), P(), P(), P(axis_name)),
-            out_specs=(P(), P(axis_name)))
-        return fn(tips, pmats, freqs, props, weights)
-
-    return run

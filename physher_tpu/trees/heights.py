@@ -96,9 +96,9 @@ def heights_from_ratios(params: jnp.ndarray, topo: Topology,
         # exact-zero ratios would make logR[-inf]-logR[-inf] = nan in W;
         # the clamp is below f32 resolution of the transform output
         r = jnp.maximum(params[: I - 1], jnp.finfo(dtype).tiny)
-        # precision=highest: the default TPU matmul precision truncates to
-        # bf16; logR feeds exp() so absolute matvec error becomes relative
-        # height error (measured ~1e-4 heights drift at bf16)
+        # precision=highest: a lower matmul precision truncates operands
+        # (bf16 or TF32); logR feeds exp() so absolute matvec error becomes
+        # relative height error (measured ~1e-4 heights drift at bf16)
         hi = jax.lax.Precision.HIGHEST
         logR = jnp.matmul(A, jnp.log(r), precision=hi)
         W = jnp.exp(logR[:, None] - logR[None, :]) * A

@@ -1,4 +1,4 @@
-"""Static tree topology as index arrays, with level schedules for TPU pruning.
+"""Static tree topology as index arrays, with level schedules for batched pruning.
 
 The reference keeps a pointer-based ``Node``/``Tree`` graph with listeners
 (reference: src/phyc/tree.c:38-55, src/phyc/node.h:34-54). Here a topology is
@@ -10,7 +10,7 @@ a frozen set of NumPy index arrays:
 - ``levels`` groups internal nodes whose children are all complete so that one
   batched kernel invocation processes a whole level (the reference's flat
   postorder loop at src/phyc/treelikelihood.c:1645 is depth-sequential per
-  node; level batching is the TPU-friendly schedule),
+  node; level batching is the device-friendly schedule),
 - ``preorder_levels`` is the mirror schedule for root-to-tip sweeps (node
   height transforms, upper/pre-order partials).
 """

@@ -3,10 +3,10 @@
 The reference has no in-library profiling — only wall-clock totals
 (reference: src/physher.c:320-324) and the benchmark harness's
 clock_gettime loops (examples/benchmarking.c:17-20). This module is the
-green-field TPU observability layer SURVEY.md §5 calls for: jax.profiler
-trace capture, steady-state op timing with compile-time separation, and a
-roofline model for the pruning kernel against the chip's peak FLOPs/HBM
-bandwidth.
+observability layer SURVEY.md §5 calls for: jax.profiler trace capture
+and its reduction to device busy time, op counts and idle share,
+steady-state timing with compile-time separation, and a roofline model for
+the pruning sweep against the device's published peaks.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dataclasses import dataclass, field
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/physher_tpu_trace"):
+def trace(log_dir: str):
     """Capture a jax.profiler trace viewable in TensorBoard/Perfetto."""
     import jax
 
@@ -58,22 +58,78 @@ def time_jit(fn, *args, calls: int = 20, warmup: int = 2) -> Timing:
     return Timing(compile_s, (time.perf_counter() - t0) / calls, calls)
 
 
-def trace_op_times(fn, args_seq, *, log_dir: str = "/tmp/physher_tpu_trace",
-                   top: int = 20):
+# A GPU trace (jax.profiler, CUPTI) has one plane per card, named
+# "/device:GPU:<n>", and one line per CUDA stream, named "Stream #<id>(<the
+# kinds of work on it>)"; its events are the kernels and copies as launched.
+DEVICE_PLANE_PREFIX = "/device:GPU:"
+STREAM_LINE_PREFIX = "Stream #"
+
+
+@dataclass
+class DeviceOps:
+    """Device-side activity of a traced window (all device planes)."""
+    busy_s: float      # union of op intervals, summed over devices
+    window_s: float    # first op start to last op end, per device, summed
+    n_ops: int         # kernels and copies launched
+    rows: list         # [(op_name, seconds, count)] by time, top-N
+
+    @property
+    def idle_share(self) -> float:
+        return 1.0 - self.busy_s / self.window_s if self.window_s else 0.0
+
+
+def device_ops(planes, top: int = 20) -> DeviceOps:
+    """Reduce a trace's planes (``jax.profiler.ProfileData(...).planes`` or
+    any objects with the same ``name``/``lines``/``events`` attributes) to
+    device busy time, window, op count and the top ops. Raises when the
+    trace has no device op track."""
+    import collections
+
+    agg = collections.Counter()
+    cnt = collections.Counter()
+    busy = window = 0.0
+    n_ops = 0
+    found = False
+    for plane in planes:
+        if not plane.name.startswith(DEVICE_PLANE_PREFIX):
+            continue
+        spans = []
+        for line in plane.lines:
+            if not line.name.startswith(STREAM_LINE_PREFIX):
+                continue
+            found = True
+            for e in line.events:
+                spans.append((e.start_ns, e.start_ns + e.duration_ns))
+                agg[e.name] += e.duration_ns
+                cnt[e.name] += 1
+        if not spans:
+            continue
+        spans.sort()
+        n_ops += len(spans)
+        window += spans[-1][1] - spans[0][0]
+        cur_lo, cur_hi = spans[0]
+        for lo, hi in spans[1:]:
+            if lo > cur_hi:
+                busy += cur_hi - cur_lo
+                cur_lo, cur_hi = lo, hi
+            else:
+                cur_hi = max(cur_hi, hi)
+        busy += cur_hi - cur_lo
+    if not found:
+        raise RuntimeError(
+            f"no device op track ({DEVICE_PLANE_PREFIX}* plane with "
+            f"{STREAM_LINE_PREFIX}* lines) in the trace")
+    rows = [(name, ns / 1e9, cnt[name]) for name, ns in agg.most_common(top)]
+    return DeviceOps(busy / 1e9, window / 1e9, n_ops, rows)
+
+
+def trace_op_times(fn, args_seq, *, log_dir: str, top: int = 20) -> DeviceOps:
     """MEASURED device-op timing: run ``fn`` over ``args_seq`` (a sequence
     of argument tuples — perturb inputs between calls so nothing is served
-    from an execution cache) under a jax.profiler trace, then parse the
-    trace-event JSON and aggregate per-op durations on the device's
-    "XLA Ops" track.
-
-    Returns ``(total_device_s, [(op_name, seconds, count), ...])`` with the
-    list sorted by time, truncated to ``top``. Total is device-busy time
-    across ALL calls — divide by ``len(args_seq)`` for per-call.
-    """
-    import collections
+    from an execution cache) under a jax.profiler trace written to
+    ``log_dir``, and reduce the device planes with :func:`device_ops`.
+    Totals cover ALL calls — divide by ``len(args_seq)`` for per-call."""
     import glob
-    import gzip
-    import json
     import os
     import shutil
 
@@ -91,41 +147,32 @@ def trace_op_times(fn, args_seq, *, log_dir: str = "/tmp/physher_tpu_trace",
         jax.profiler.stop_trace()
 
     paths = glob.glob(os.path.join(
-        log_dir, "plugins", "profile", "*", "*.trace.json.gz"))
+        log_dir, "plugins", "profile", "*", "*.xplane.pb"))
     if not paths:
-        return 0.0, []
-    with gzip.open(max(paths, key=os.path.getmtime)) as f:
-        data = json.load(f)
-    evs = data.get("traceEvents", [])
-    dev_pids = {e["pid"] for e in evs
-                if e.get("ph") == "M" and e.get("name") == "process_name"
-                and "TPU" in e["args"].get("name", "")}
-    op_tids = {(e["pid"], e["tid"]) for e in evs
-               if e.get("ph") == "M" and e.get("name") == "thread_name"
-               and e["pid"] in dev_pids
-               and e["args"].get("name") == "XLA Ops"}
-    agg = collections.Counter()
-    cnt = collections.Counter()
-    for e in evs:
-        if e.get("ph") == "X" and (e.get("pid"), e.get("tid")) in op_tids:
-            agg[e["name"]] += e["dur"]
-            cnt[e["name"]] += 1
-    total = sum(agg.values()) / 1e6
-    rows = [(name, us / 1e6, cnt[name]) for name, us in agg.most_common(top)]
-    return total, rows
+        raise RuntimeError(f"no trace written under {log_dir}")
+    data = jax.profiler.ProfileData.from_file(
+        max(paths, key=os.path.getmtime))
+    return device_ops(data.planes, top=top)
 
 
 # -- roofline ---------------------------------------------------------------
 
-# peak dense f32-equivalent FLOPs and HBM bandwidth per chip generation
+# Published peaks per device, keyed by jax's ``device_kind``: dense rates
+# outside the tensor cores (the pruning's 4..61-state contractions run at
+# full f32 or f64 precision) and device-memory bandwidth. Source: NVIDIA
+# H100 data sheet (SXM5 and PCIe parts; rates at the full power limit).
 CHIP_PEAKS = {
-    # name: (peak_tflops_bf16, hbm_gb_s)
-    "v4": (275.0, 1228.0),
-    "v5e": (394.0, 819.0),
-    "v5p": (459.0, 2765.0),
-    "v6e": (918.0, 1640.0),
-    "cpu": (0.5, 50.0),
+    # device_kind: {f32 TFLOP/s, f64 TFLOP/s, memory GB/s}
+    "NVIDIA H100 80GB HBM3": {"f32": 67.0, "f64": 34.0, "gb_s": 3350.0},
+    "NVIDIA H100 PCIe": {"f32": 51.0, "f64": 26.0, "gb_s": 2000.0},
 }
+
+
+def chip_peaks(chip: str) -> dict:
+    if chip not in CHIP_PEAKS:
+        raise ValueError(f"no published peaks for device {chip!r}; "
+                         f"known: {sorted(CHIP_PEAKS)}")
+    return CHIP_PEAKS[chip]
 
 
 @dataclass
@@ -133,8 +180,18 @@ class Roofline:
     flops: float
     bytes: float
     seconds: float
-    chip: str = "v5e"
+    chip: str
+    dtype_bytes: int = 4
     notes: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        chip_peaks(self.chip)
+
+    @property
+    def peaks(self) -> tuple:
+        """(peak TFLOP/s at this precision, peak memory GB/s)."""
+        p = chip_peaks(self.chip)
+        return p["f64" if self.dtype_bytes == 8 else "f32"], p["gb_s"]
 
     @property
     def intensity(self) -> float:
@@ -150,12 +207,12 @@ class Roofline:
         return self.bytes / max(self.seconds, 1e-12) / 1e9
 
     def bound(self) -> str:
-        peak_tf, peak_bw = CHIP_PEAKS.get(self.chip, CHIP_PEAKS["v5e"])
+        peak_tf, peak_bw = self.peaks
         ridge = peak_tf * 1e12 / (peak_bw * 1e9)
         return "compute" if self.intensity > ridge else "memory"
 
     def fraction_of_peak(self) -> float:
-        peak_tf, peak_bw = CHIP_PEAKS.get(self.chip, CHIP_PEAKS["v5e"])
+        peak_tf, peak_bw = self.peaks
         if self.bound() == "compute":
             return self.achieved_tflops / peak_tf
         return self.achieved_gbs / peak_bw
@@ -163,8 +220,8 @@ class Roofline:
     def report(self) -> str:
         frac = self.fraction_of_peak()
         # with both roofs far away the limiting-roof label misleads:
-        # the kernel is really bound by per-op latency / pipeline
-        # occupancy, not the roof it happens to sit under
+        # the kernel is really bound by per-op latency / occupancy, not
+        # the roof it happens to sit under
         bound = (self.bound() if frac >= 0.3
                  else f"{self.bound()}-roof, latency/occupancy")
         return (f"{self.flops/1e9:.2f} GFLOP, {self.bytes/1e6:.1f} MB, "
@@ -177,17 +234,16 @@ class Roofline:
 
 
 def pruning_roofline(n_nodes: int, n_cat: int, n_states: int,
-                     n_patterns: int, seconds: float, *,
-                     dtype_bytes: int = 4, chip: str = "v5e",
+                     n_patterns: int, seconds: float, *, chip: str,
+                     dtype_bytes: int = 4,
                      with_gradient: bool = False) -> Roofline:
     """Roofline model of one likelihood evaluation.
 
     FLOPs: per internal node, per category: S x S x P multiply-adds per
     child (x2 children) plus the S x P product — the arithmetic the
     reference's SIMD kernels perform (treelikelihood4.c update_partials).
-    Bytes: partials read/write + P-matrices, the HBM-bound floor for the
-    level-batched XLA path (the fused Pallas kernel keeps partials in VMEM
-    so its floor is tips + pmats + site_log only).
+    Bytes: partials read/write + P-matrices, the device-memory floor of
+    the level-batched XLA path.
     """
     internal = n_nodes // 2
     flops = internal * n_cat * (2 * 2 * n_states * n_states * n_patterns
@@ -197,17 +253,14 @@ def pruning_roofline(n_nodes: int, n_cat: int, n_states: int,
     if with_gradient:
         flops *= 3
         byts *= 2
-    return Roofline(float(flops), float(byts), seconds, chip)
+    return Roofline(float(flops), float(byts), seconds, chip, dtype_bytes)
 
 
 def detect_chip() -> str:
+    """The default device's ``device_kind``, if :data:`CHIP_PEAKS` knows it;
+    any other device is an error, not a default."""
     import jax
 
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return "cpu"
-    for key in ("v6e", "v5p", "v5e", "v5 lite", "v4"):
-        if key in kind:
-            return "v5e" if key == "v5 lite" else key
-    return "cpu" if "cpu" in kind else "v5e"
+    kind = jax.devices()[0].device_kind
+    chip_peaks(kind)
+    return kind

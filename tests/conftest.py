@@ -1,7 +1,7 @@
 """Test configuration: run on a virtual 8-device CPU mesh with float64.
 
-Golden-value parity with the reference C implementation requires float64,
-which TPUs do not support natively — tests always run on CPU. Multi-chip
+Golden-value parity with the reference C implementation requires float64;
+tests always run on CPU (chip_smoke.py runs the main path on a GPU). Multi-chip
 sharding is exercised on a virtual 8-device host mesh (the same mechanism the
 driver uses for ``dryrun_multichip``).
 """

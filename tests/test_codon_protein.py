@@ -204,7 +204,7 @@ def test_codon_m0_ml_recovers_omega():
     """BASELINE workload #3: codon (M0-style) likelihood + ML
     optimization. Simulate under GY94 (kappa=2, omega=0.2) via the
     simultron path (reference: src/phyc/physim.c) and recover the
-    selection parameters by full-gradient Adam (the TPU replacement for
+    selection parameters by full-gradient Adam (the batched replacement for
     the reference's serial-Brent codon optimization,
     treelikelihoodCodon.c + optimizer.c)."""
     import jax

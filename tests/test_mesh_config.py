@@ -152,3 +152,29 @@ def test_cli_devices_flag(cfg, data_dir, tmp_path, capsys):
     f.write_text(json.dumps(c).replace("fluA.fa", f"{data_dir}/fluA.fa"))
     assert main([str(f), "--devices", "4", "--platform", "cpu"]) == 0
     assert "MCMC finished" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("devices,want", [(None, 238), (4, 240), (8, 240)])
+def test_pattern_padding_is_mesh_size(cfg, data_dir, devices, want):
+    """fluA's 238 patterns: no padding on one device, padded (with zero
+    weight) to a multiple of the pattern-mesh size when sharded."""
+    ctx, _ = build_config(copy.deepcopy(cfg), base_dir=data_dir,
+                          devices=devices)
+    tlk = ctx.objects["treelikelihood"]
+    assert tlk.tip_partials.shape[-1] == want
+    assert float(np.sum(np.asarray(tlk.weights)[238:])) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_default_pattern_padding_is_none(data_dir, dtype):
+    from physher_tpu.data.sitepattern import SitePattern
+    from physher_tpu.io.seqio import read_alignment
+    from physher_tpu.models.substitution import JC69
+    from physher_tpu.models.treelikelihood import TreeLikelihood
+    from physher_tpu.utils.synthetic import balanced_topology
+
+    sp = SitePattern.from_alignment(read_alignment(f"{data_dir}/fluA.fa"))
+    topo = balanced_topology(69)
+    topo.taxa[:] = sp.taxa
+    tlk = TreeLikelihood(sp, topo, JC69(), dtype=np.dtype(dtype))
+    assert tlk.tip_partials.shape[-1] == sp.pattern_count == 238

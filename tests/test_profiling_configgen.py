@@ -9,6 +9,8 @@ import pytest
 from physher_tpu.utils import profiling
 from physher_tpu import configgen
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 class TestProfiling:
     def test_time_jit(self):
@@ -20,19 +22,27 @@ class TestProfiling:
         assert t.per_call_ms < t.compile_s * 1e3
 
     def test_roofline_math(self):
-        r = profiling.pruning_roofline(137, 4, 4, 256, 1e-3, chip="v5e")
+        r = profiling.pruning_roofline(137, 4, 4, 256, 1e-3, chip=H100)
         assert r.flops > 0 and r.bytes > 0
         assert r.bound() in ("compute", "memory")
         assert 0 <= r.fraction_of_peak() < 10
         assert "GFLOP" in r.report()
 
     def test_intensity_small_states_memory_bound(self):
-        # 4-state pruning is memory-bound on any TPU generation
-        r = profiling.pruning_roofline(2000, 4, 4, 4096, 1e-3, chip="v5e")
+        # 4-state pruning is memory-bound at f32 and f64 alike
+        r = profiling.pruning_roofline(2000, 4, 4, 4096, 1e-3, chip=H100)
         assert r.bound() == "memory"
 
-    def test_detect_chip(self):
-        assert profiling.detect_chip() in profiling.CHIP_PEAKS
+    def test_detect_chip(self, monkeypatch):
+        import jax
+        from types import SimpleNamespace
+
+        # a device without published peaks (this CPU) is an error
+        with pytest.raises(ValueError, match="no published peaks"):
+            profiling.detect_chip()
+        monkeypatch.setattr(jax, "devices", lambda *a: [
+            SimpleNamespace(platform="gpu", device_kind=H100)])
+        assert profiling.detect_chip() == H100
 
 
 class TestConfiggen:

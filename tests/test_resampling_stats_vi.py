@@ -232,7 +232,7 @@ class TestJenks:
 
 
 def test_qgamma_fixed_p_matches_newton_f32():
-    """Tabulated gamma quantiles (TPU fast path) track the Newton inverse."""
+    """Tabulated gamma quantiles (f32 fast path) track the Newton inverse."""
     import jax
     import jax.numpy as jnp
     import numpy as np
